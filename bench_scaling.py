@@ -1,25 +1,22 @@
-"""Multi-chip scaling-efficiency benchmark (BASELINE.md: >= 85% rays/s
-scaling 1 chip -> N). Renders the same workload on a 1-device mesh and on
-the full mesh and reports parallel efficiency.
+"""Multi-device scaling-efficiency benchmark: renders the same workload on a
+1-device mesh and on the full mesh and reports parallel efficiency.
 
 Prints one JSON line:
   {"metric": "scaling efficiency 1->N", "value": eff, "unit": "ratio", ...}
 
-On this container only ONE real TPU chip is reachable, so against real
-hardware this reports N=1 (efficiency 1.0 by definition). To exercise the
-sharded path mechanically, run on virtual CPU devices:
+Run it in one process on a machine with several GPUs (four H100s joined by
+NVLink); with one visible device it reports N=1 (efficiency 1.0 by
+definition). To exercise the sharded path mechanically, run on virtual CPU
+devices (CPU timings say nothing about the GPUs):
 
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python bench_scaling.py
 
-(CPU timings do not predict ICI behavior; the harness exists so a pod
-slice can produce the real number unchanged.)
-
 A jax.profiler trace of one sharded render step AND one distributed train
-step (the ICI gradient psum) is written to SCALE_PROFILE_DIR (default
-/tmp/cpt_scaling_profile) — open with TensorBoard / xprof to inspect
-whether the grad all-reduce overlaps the backward sweep. The artifact path
-rides in the JSON line as "profile_artifact".
+step (the gradient psum) is written to SCALE_PROFILE_DIR (default
+profiles/scaling inside the checkout; set empty to skip) — the
+trace shows whether the gradient all-reduce overlaps the backward sweep.
+The artifact path rides in the JSON line as "profile_artifact".
 
 Env knobs: SCALE_SIZE (default 512), SCALE_SPP (4), SCALE_SUBDIV (2),
 SCALE_PROFILE_DIR (set empty to skip profiling).
@@ -36,14 +33,18 @@ import numpy as np
 def main():
     import jax
 
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        jax.config.update("jax_platforms", "cpu")
+    from cudapathtracer.utils.compile_cache import (
+        REPO_ROOT,
+        enable_compile_cache,
+    )
 
-    import cudapathtracer_tpu as cpt
-    from cudapathtracer_tpu.models import procedural
-    from cudapathtracer_tpu.parallel import mesh as mesh_mod
-    from cudapathtracer_tpu.parallel import shard as shard_mod
-    from cudapathtracer_tpu.render.renderer import (
+    enable_compile_cache()
+
+    import cudapathtracer as cpt
+    from cudapathtracer.models import procedural
+    from cudapathtracer.parallel import mesh as mesh_mod
+    from cudapathtracer.parallel import shard as shard_mod
+    from cudapathtracer.render.renderer import (
         build_bvh_for_scene,
         init_accum,
     )
@@ -77,11 +78,12 @@ def main():
         return rays / best / 1e6, st
 
     # profiler artifact: one sharded forward step + one train step (the
-    # psum all-reduce) under jax.profiler.trace — the ICI-overlap evidence
-    # for the pod run (r2 verdict #8)
-    prof_dir = os.environ.get("SCALE_PROFILE_DIR", "/tmp/cpt_scaling_profile")
+    # psum all-reduce) under jax.profiler.trace
+    prof_dir = os.environ.get(
+        "SCALE_PROFILE_DIR",
+        os.path.join(REPO_ROOT, "profiles", "scaling"))
     if prof_dir:
-        from cudapathtracer_tpu.diff import render_grad as rg
+        from cudapathtracer.diff import render_grad as rg
 
         mesh = mesh_mod.make_tile_mesh(n_all)
         small = cpt.RenderConfig(width=min(size, 256), height=min(size, 256),

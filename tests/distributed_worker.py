@@ -22,7 +22,7 @@ import numpy as np  # noqa: E402
 def main():
     coord, nproc, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 
-    from cudapathtracer_tpu.parallel.mesh import (
+    from cudapathtracer.parallel.mesh import (
         TILE_AXIS,
         initialize_distributed,
         make_tile_mesh,
@@ -37,10 +37,10 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from cudapathtracer_tpu import RenderConfig, init_accum, make_camera, render
-    from cudapathtracer_tpu.models import procedural
-    from cudapathtracer_tpu.parallel.shard import render_sharded
-    from cudapathtracer_tpu.render.renderer import build_bvh_for_scene
+    from cudapathtracer import RenderConfig, init_accum, make_camera, render
+    from cudapathtracer.models import procedural
+    from cudapathtracer.parallel.shard import render_sharded
+    from cudapathtracer.render.renderer import build_bvh_for_scene
 
     scene = procedural.to_scene(procedural.cornell_box())
     cam = make_camera(width=16, height=16)
@@ -90,7 +90,7 @@ def main():
     # uninterrupted sharded run.
     import tempfile
 
-    from cudapathtracer_tpu.utils.checkpoint import (
+    from cudapathtracer.utils.checkpoint import (
         load_checkpoint_sharded,
         save_checkpoint_sharded,
     )
@@ -120,14 +120,14 @@ def main():
     print(f"OK process {pid}: sharded checkpoint resume bit-exact",
           flush=True)
 
-    # ---- cross-process train-step gradient psum (the DCN path) -----------
+    # ---- cross-process train-step gradient psum ---------------------------
     # The single-process mesh tests (test_parallel.py) verify the sharded
     # gradient math; here the SAME psum runs across two real processes over
     # the jax.distributed transport, and every process checks the
     # all-reduced gradients against a locally-computed single-device
     # reference (round-3 verdict: this path was untested).
-    from cudapathtracer_tpu.diff import render_grad as rg
-    from cudapathtracer_tpu.parallel.shard import make_sharded_grad_fn
+    from cudapathtracer.diff import render_grad as rg
+    from cudapathtracer.parallel.shard import make_sharded_grad_fn
 
     gkey = jax.random.PRNGKey(7)
     target = rg.render_image_diff(scene, cam, cfg, jax.random.PRNGKey(9), 1,

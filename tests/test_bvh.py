@@ -3,11 +3,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cudapathtracer_tpu.accel import bvh as bvh_mod
-from cudapathtracer_tpu.models import procedural
-from cudapathtracer_tpu.ops import traversal
-from cudapathtracer_tpu.ops.vecmath import Vec3
-from cudapathtracer_tpu.utils.constants import MAX_BVH_DEPTH
+from cudapathtracer.accel import bvh as bvh_mod
+from cudapathtracer.models import procedural
+from cudapathtracer.ops import traversal
+from cudapathtracer.ops.vecmath import Vec3
+from cudapathtracer.utils.constants import MAX_BVH_DEPTH
 
 
 def _random_tris(rng, n, spread=10.0, size=0.5):
@@ -23,7 +23,7 @@ def _random_tris(rng, n, spread=10.0, size=0.5):
 
 
 def _scene_from(verts, idx):
-    from cudapathtracer_tpu.models.scene import make_scene
+    from cudapathtracer.models.scene import make_scene
 
     mats = np.zeros(idx.shape[0], np.int32)
     alb = np.array([[0.5, 0.5, 0.5]], np.float32)
@@ -135,11 +135,11 @@ def test_trace_stats_under_jit():
     histogram size must be static; td.num_tris is a tracer under jit)."""
     import jax
 
-    from cudapathtracer_tpu.models import procedural
-    from cudapathtracer_tpu.render.renderer import build_bvh_for_scene
-    from cudapathtracer_tpu import make_camera
-    from cudapathtracer_tpu.ops.rng import pixel_keys, sample_key
-    from cudapathtracer_tpu.render.camera import camera_rays
+    from cudapathtracer.models import procedural
+    from cudapathtracer.render.renderer import build_bvh_for_scene
+    from cudapathtracer import make_camera
+    from cudapathtracer.ops.rng import pixel_keys, sample_key
+    from cudapathtracer.render.camera import camera_rays
 
     scene = procedural.to_scene(procedural.cornell_box())
     accel = build_bvh_for_scene(scene, 4)

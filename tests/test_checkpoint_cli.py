@@ -6,9 +6,11 @@ import numpy as np
 import jax
 import pytest
 
-from cudapathtracer_tpu import RenderConfig, make_camera, render
-from cudapathtracer_tpu.models import procedural
-from cudapathtracer_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
+from cudapathtracer import RenderConfig, make_camera, render
+from cudapathtracer.models import procedural
+from cudapathtracer.utils.checkpoint import load_checkpoint, save_checkpoint
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -54,10 +56,10 @@ def _run_cli(args, timeout=560):
     env["JAX_PLATFORMS"] = ""  # let conftest-less subprocess pick default
     code = (
         "import jax; jax.config.update('jax_platforms','cpu');"
-        "from cudapathtracer_tpu.cli import main; main(%r)" % (args,)
+        "from cudapathtracer.cli import main; main(%r)" % (args,)
     )
     return subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=timeout, cwd="/root/repo")
+                          text=True, timeout=timeout, cwd=REPO)
 
 
 def test_cli_render_and_heatmap(tmp_path):
@@ -67,7 +69,7 @@ def test_cli_render_and_heatmap(tmp_path):
                   "-o", out])
     assert r.returncode == 0, r.stderr[-2000:]
     assert os.path.exists(out)
-    from cudapathtracer_tpu.utils.ppm import read_ppm
+    from cudapathtracer.utils.ppm import read_ppm
 
     img = read_ppm(out)
     assert img.shape == (16, 16, 3)
@@ -82,7 +84,7 @@ def test_cli_render_and_heatmap(tmp_path):
     assert len(lines) == 36  # cornell tri count
     assert all(line.endswith(",") for line in lines)
     # the BVH falsecolor render (the 'sponza bvh.ppm' keeper capability)
-    from cudapathtracer_tpu.utils.png import read_png
+    from cudapathtracer.utils.png import read_png
 
     img2 = read_png(fc)
     assert img2.shape == (16, 16, 3)

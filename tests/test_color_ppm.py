@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cudapathtracer_tpu.ops.vecmath import Vec3
-from cudapathtracer_tpu.utils import color, ppm
+from cudapathtracer.ops.vecmath import Vec3
+from cudapathtracer.utils import color, ppm
 
 
 def test_tonemap_reinhard():
@@ -63,8 +63,8 @@ def test_png_roundtrip_matches_ppm():
     """PNG writer (utils/png.py): same image as the PPM path, lossless."""
     import numpy as np
 
-    from cudapathtracer_tpu.utils.png import read_png, write_png
-    from cudapathtracer_tpu.utils.ppm import read_ppm, write_ppm
+    from cudapathtracer.utils.png import read_png, write_png
+    from cudapathtracer.utils.ppm import read_ppm, write_ppm
 
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (16, 32, 3), dtype=np.uint8)

@@ -1,4 +1,4 @@
-"""Gradient correctness: finite-difference validation (the BASELINE.json
+"""Gradient correctness: finite-difference validation (the
 "grad-check max abs err" metric). The reference has no gradients; these
 tests define the contract for the new capability."""
 
@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cudapathtracer_tpu import RenderConfig, make_camera
-from cudapathtracer_tpu.diff import render_grad as rg
-from cudapathtracer_tpu.models import procedural
-from cudapathtracer_tpu.render.renderer import build_bvh_for_scene
+from cudapathtracer import RenderConfig, make_camera
+from cudapathtracer.diff import render_grad as rg
+from cudapathtracer.models import procedural
+from cudapathtracer.render.renderer import build_bvh_for_scene
 
 
 @pytest.fixture(scope="module")
@@ -108,7 +108,7 @@ def test_grads_zero_for_unseen_material(setup):
     scene, cam, cfg, bvh, key = setup
     # append an unused material
     import jax.numpy as jnp
-    from cudapathtracer_tpu.ops.vecmath import Vec3
+    from cudapathtracer.ops.vecmath import Vec3
 
     def cat(v, val):
         return Vec3(jnp.concatenate([v.x, jnp.asarray([val])]),

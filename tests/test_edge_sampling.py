@@ -11,16 +11,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cudapathtracer_tpu import RenderConfig, make_camera
-from cudapathtracer_tpu.diff import render_grad as rg
-from cudapathtracer_tpu.diff.edge_sampling import (
+from cudapathtracer import RenderConfig, make_camera
+from cudapathtracer.diff import render_grad as rg
+from cudapathtracer.diff.edge_sampling import (
     EdgeTable,
     build_edge_table,
     boundary_image,
 )
-from cudapathtracer_tpu.models import procedural
-from cudapathtracer_tpu.models.scene import make_scene
-from cudapathtracer_tpu.render.renderer import build_bvh_for_scene
+from cudapathtracer.models import procedural
+from cudapathtracer.models.scene import make_scene
+from cudapathtracer.render.renderer import build_bvh_for_scene
 
 
 def occluder_scene():
@@ -68,7 +68,7 @@ def test_boundary_image_value_is_zero():
     cam = make_camera(width=16, height=16)
 
     def radiance_stub(o, d, kidx):
-        from cudapathtracer_tpu.ops.vecmath import Vec3
+        from cudapathtracer.ops.vecmath import Vec3
         return Vec3.full(o.x.shape, 1.0, 2.0, 3.0)
 
     img = boundary_image(scene, cam, et, radiance_stub,
@@ -183,7 +183,7 @@ def test_shadow_silhouette_gradient_matches_fd():
     mean ~ 0.0325 +- 0.006 over seeds — the ~25% residual is the
     remaining BRDF-branch direct term and bounce-1 shadows, documented in
     shadow_boundary_image's scope note."""
-    from cudapathtracer_tpu.utils.morton import morton_decode
+    from cudapathtracer.utils.morton import morton_decode
 
     scene, tris, occ_ids = shadow_scene()
     et = build_edge_table(tris)

@@ -14,11 +14,11 @@ import os
 import numpy as np
 import pytest
 
-import cudapathtracer_tpu as cpt
-from cudapathtracer_tpu import RenderConfig, make_camera
-from cudapathtracer_tpu.models import procedural
-from cudapathtracer_tpu.render.renderer import finalize_image
-from cudapathtracer_tpu.utils.ppm import read_ppm
+import cudapathtracer as cpt
+from cudapathtracer import RenderConfig, make_camera
+from cudapathtracer.models import procedural
+from cudapathtracer.render.renderer import finalize_image
+from cudapathtracer.utils.ppm import read_ppm
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 
@@ -79,8 +79,8 @@ def test_golden_bvh_falsecolor():
     """Traversal-cost falsecolor (the 'sponza bvh.ppm' keeper analogue,
     /root/reference/keepers/): drift in per-ray BVH visit counts — BVH
     build quality or traversal behavior — shows up as image drift here."""
-    from cudapathtracer_tpu.render.renderer import build_bvh_for_scene
-    from cudapathtracer_tpu.utils.profiling import falsecolor_state
+    from cudapathtracer.render.renderer import build_bvh_for_scene
+    from cudapathtracer.utils.profiling import falsecolor_state
 
     scene = procedural.to_scene(procedural.colonnade(subdiv=2))
     cfg = RenderConfig(width=64, height=64, spp=1, samples_per_call=1,

@@ -1,9 +1,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cudapathtracer_tpu.ops import intersect
-from cudapathtracer_tpu.ops.vecmath import Vec3
-from cudapathtracer_tpu.utils.constants import MAX_FLOAT
+from cudapathtracer.ops import intersect
+from cudapathtracer.ops.vecmath import Vec3
+from cudapathtracer.utils.constants import MAX_FLOAT
 
 
 def v3(*cols):

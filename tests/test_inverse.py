@@ -6,10 +6,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cudapathtracer_tpu import RenderConfig, make_camera
-from cudapathtracer_tpu.diff import render_grad as rg
-from cudapathtracer_tpu.models import procedural
-from cudapathtracer_tpu.render.renderer import build_bvh_for_scene
+from cudapathtracer import RenderConfig, make_camera
+from cudapathtracer.diff import render_grad as rg
+from cudapathtracer.models import procedural
+from cudapathtracer.render.renderer import build_bvh_for_scene
 
 
 def test_recover_wall_albedo():

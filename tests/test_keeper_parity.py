@@ -31,13 +31,13 @@ import os
 import numpy as np
 import pytest
 
-from cudapathtracer_tpu import RenderConfig
-from cudapathtracer_tpu.models.cornell_original import (
+from cudapathtracer import RenderConfig
+from cudapathtracer.models.cornell_original import (
     cornell_original_scene,
     reference_camera,
 )
-from cudapathtracer_tpu.render.renderer import finalize_image, render
-from cudapathtracer_tpu.utils.ppm import read_ppm
+from cudapathtracer.render.renderer import finalize_image, render
+from cudapathtracer.utils.ppm import read_ppm
 
 KEEPERS = "/root/reference/keepers"
 
@@ -46,7 +46,7 @@ pytestmark = pytest.mark.skipif(
 )
 
 
-from cudapathtracer_tpu.utils.keeper import block32, regions  # noqa: E402
+from cudapathtracer.utils.keeper import block32, regions  # noqa: E402
 
 
 def render_cornell(integrator, spp, **cfg_kw):

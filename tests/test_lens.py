@@ -16,15 +16,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cudapathtracer_tpu import RenderConfig, init_accum, make_camera, render
-from cudapathtracer_tpu.models import procedural
-from cudapathtracer_tpu.render.camera import camera_rays
-from cudapathtracer_tpu.render.renderer import (
+from cudapathtracer import RenderConfig, init_accum, make_camera, render
+from cudapathtracer.models import procedural
+from cudapathtracer.render.camera import camera_rays
+from cudapathtracer.render.renderer import (
     build_bvh_for_scene,
     finalize_image,
     render_batch_jit,
 )
-from cudapathtracer_tpu.ops.rng import pixel_keys, sample_key
+from cudapathtracer.ops.rng import pixel_keys, sample_key
 
 
 def _emissive_quad_scene(half=0.4, z=0.0):

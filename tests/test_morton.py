@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cudapathtracer_tpu.utils import morton
+from cudapathtracer.utils import morton
 
 
 def _ref_morton_encode(x, y):

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from cudapathtracer_tpu.accel import bvh as bvh_mod
-from cudapathtracer_tpu.accel.native import (
+from cudapathtracer.accel import bvh as bvh_mod
+from cudapathtracer.accel.native import (
     build_bvh_native,
     native_available,
     parse_obj_native,
 )
-from cudapathtracer_tpu.models import procedural
-from cudapathtracer_tpu.models.objio import parse_obj
+from cudapathtracer.models import procedural
+from cudapathtracer.models.objio import parse_obj
 
 pytestmark = pytest.mark.skipif(
     not native_available(), reason="native lib not built and make failed"
@@ -96,7 +96,7 @@ def test_obj_parser_vtn_forms(tmp_path):
 
 
 def test_loader_uses_native(tmp_path):
-    from cudapathtracer_tpu.models.loader import load_obj
+    from cudapathtracer.models.loader import load_obj
 
     desc = procedural.cornell_box()
     obj = tmp_path / "c.obj"

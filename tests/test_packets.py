@@ -8,13 +8,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cudapathtracer_tpu import RenderConfig, make_camera
-from cudapathtracer_tpu.models import procedural
-from cudapathtracer_tpu.ops import packets, traversal
-from cudapathtracer_tpu.ops.rng import pixel_keys, sample_key
-from cudapathtracer_tpu.ops.vecmath import Vec3
-from cudapathtracer_tpu.render.camera import camera_rays
-from cudapathtracer_tpu.render.renderer import build_bvh_for_scene
+from cudapathtracer import RenderConfig, make_camera
+from cudapathtracer.models import procedural
+from cudapathtracer.ops import packets, traversal
+from cudapathtracer.ops.rng import pixel_keys, sample_key
+from cudapathtracer.ops.vecmath import Vec3
+from cudapathtracer.render.camera import camera_rays
+from cudapathtracer.render.renderer import build_bvh_for_scene
 
 
 @pytest.fixture(scope="module")
@@ -136,26 +136,13 @@ def test_cull_is_conservative(setup):
         )
 
 
-def test_pallas_engine_interpret_matches_xla(setup):
-    """The Pallas dense kernel (interpreter mode on CPU) agrees with the XLA
-    slot-scan engine: same triangle everywhere, t to ULP tolerance."""
-    scene, td, pd, o, d = setup
-    hx = packets.trace_packets(o, d, pd, fine_td=td, tile_size=64,
-                               max_clusters=8, engine="xla")
-    hp = packets.trace_packets(o, d, pd, fine_td=td, tile_size=64,
-                               max_clusters=8, engine="pallas_interpret")
-    np.testing.assert_array_equal(np.asarray(hp.tri), np.asarray(hx.tri))
-    np.testing.assert_allclose(np.asarray(hp.t), np.asarray(hx.t),
-                               rtol=1e-6, atol=1e-6)
-
-
 def test_render_packets_matches_bvh_render(setup):
     """End-to-end: a packets render equals the bvh render.
 
     Hit results are bit-identical (tests above), but the surrounding
     radiance arithmetic is fused differently by XLA in the two programs
     (FMA contraction), so the images agree to ULP-level tolerance only."""
-    import cudapathtracer_tpu as cpt
+    import cudapathtracer as cpt
 
     scene = procedural.to_scene(procedural.cornell_box())
     cam = make_camera(width=32, height=32)
@@ -168,84 +155,6 @@ def test_render_packets_matches_bvh_render(setup):
                  (sp.img.z, sb.img.z)]:
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-5, atol=1e-6)
-
-
-def test_pallas_resident_engine_interpret_matches_xla():
-    """The VMEM-resident kernel (C=128 path) in interpreter mode agrees
-    with the XLA engine (the other interpret test covers the DMA kernel,
-    whose C=16 fixture is not resident-eligible)."""
-    scene = procedural.to_scene(procedural.cornell_with_sphere_mesh(subdiv=2))
-    accel = build_bvh_for_scene(scene, leaf_size=4, cluster_size=128)
-    td = traversal.make_trace_data(scene, accel.fine)
-    pd = packets.make_packet_data(
-        scene,
-        Vec3(accel.cl_lo_x, accel.cl_lo_y, accel.cl_lo_z),
-        Vec3(accel.cl_hi_x, accel.cl_hi_y, accel.cl_hi_z),
-        accel.cl_tri,
-    )
-    from cudapathtracer_tpu.ops.pallas.dense_resident import resident_fits
-
-    assert pd.cluster_size % 128 == 0
-    assert resident_fits(pd.num_clusters, pd.cluster_size)
-
-    cam = make_camera(width=16, height=16)
-    idx = jnp.arange(16 * 16, dtype=jnp.uint32)
-    keys = pixel_keys(sample_key(jax.random.PRNGKey(0), 0), idx)
-    o, d = camera_rays(cam, idx, keys, jitter=False)
-    mask = (jnp.arange(256) % 7) != 0
-    hx = packets.trace_packets(o, d, pd, fine_td=td, mask=mask,
-                               tile_size=64, max_clusters=16, engine="xla")
-    hp = packets.trace_packets(o, d, pd, fine_td=td, mask=mask,
-                               tile_size=64, max_clusters=16,
-                               engine="pallas_interpret")
-    np.testing.assert_array_equal(np.asarray(hp.tri), np.asarray(hx.tri))
-    np.testing.assert_allclose(np.asarray(hp.t), np.asarray(hx.t),
-                               rtol=1e-6, atol=1e-6)
-
-
-def test_forced_dma_kernel_matches_resident(monkeypatch):
-    """A resident-ELIGIBLE scene (C=128) forced down the DMA-pipelined
-    kernel (ops/pallas/dense.py) by shrinking RESIDENT_VMEM_BUDGET must
-    agree with the resident kernel bit-for-bit on tri and to ULP on t.
-
-    This is the documented kernel boundary (round-4 verdict item 5): the
-    resident kernel covers scenes whose (K+1, 16, C) pack fits
-    RESIDENT_VMEM_BUDGET (~1.1M tris at the 72 MB default); bigger scenes
-    take the DMA path, which shares the fold/gate/count-ladder code but
-    streams cluster blocks HBM -> VMEM. The forced run keeps the fallback
-    path green even while no in-repo scene exceeds the budget."""
-    from cudapathtracer_tpu.ops.pallas import dense_resident
-
-    scene = procedural.to_scene(procedural.cornell_with_sphere_mesh(subdiv=2))
-    accel = build_bvh_for_scene(scene, leaf_size=4, cluster_size=128)
-    td = traversal.make_trace_data(scene, accel.fine)
-    pd = packets.make_packet_data(
-        scene,
-        Vec3(accel.cl_lo_x, accel.cl_lo_y, accel.cl_lo_z),
-        Vec3(accel.cl_hi_x, accel.cl_hi_y, accel.cl_hi_z),
-        accel.cl_tri,
-    )
-    assert dense_resident.resident_fits(pd.num_clusters, pd.cluster_size)
-
-    cam = make_camera(width=16, height=16)
-    idx = jnp.arange(16 * 16, dtype=jnp.uint32)
-    keys = pixel_keys(sample_key(jax.random.PRNGKey(0), 0), idx)
-    o, d = camera_rays(cam, idx, keys, jitter=False)
-    mask = (jnp.arange(256) % 7) != 0
-
-    kw = dict(fine_td=td, mask=mask, tile_size=64, max_clusters=16,
-              engine="pallas_interpret")
-    h_res = packets.trace_packets(o, d, pd, **kw)
-
-    monkeypatch.setattr(dense_resident, "RESIDENT_VMEM_BUDGET", 1024)
-    assert not dense_resident.resident_fits(pd.num_clusters,
-                                            pd.cluster_size)
-    h_dma = packets.trace_packets(o, d, pd, **kw)
-
-    np.testing.assert_array_equal(np.asarray(h_dma.tri),
-                                  np.asarray(h_res.tri))
-    np.testing.assert_allclose(np.asarray(h_dma.t), np.asarray(h_res.t),
-                               rtol=1e-6, atol=1e-6)
 
 
 def test_windowed_sort_exact(setup):
@@ -310,7 +219,7 @@ def test_two_level_cull_exact(setup):
 def test_t_cap_exact(setup):
     """Capped queries (t_cap): hits below the cap are exact, hits at/beyond
     it report as the canonical miss — matching apply_t_cap over the brute
-    oracle, across engines, rounds and the fallback path."""
+    oracle, across rounds, the two-level cull and the fallback path."""
     scene, td, pd, o, d = setup
     hb = traversal.trace_bruteforce(o, d, scene)
     # caps straddling the real hit distances: some rays capped out, some not
@@ -320,7 +229,6 @@ def test_t_cap_exact(setup):
     ref = traversal.apply_t_cap(hb, caps)
     for kw in (dict(), dict(rounds=2, first_round_slots=2, sort=True),
                dict(max_clusters=1),           # heavy fallback
-               dict(engine="pallas_interpret"),
                dict(two_level=True, super_factor=4, super_slots=3)):
         hp = packets.trace_packets(o, d, pd, fine_td=td, tile_size=64,
                                    max_clusters=kw.pop("max_clusters", 8),
@@ -386,117 +294,42 @@ def test_packets_bw_vs_mt_only_tie_flips(setup):
     assert flips.mean() < 0.06, f"seam-flip fraction {flips.mean():.4f}"
 
 
-@pytest.fixture(scope="module")
-def setup_resident():
-    """Resident-kernel-eligible fixture (C=128) for the super-shortlist and
-    vis_band tests — small image so interpret mode stays affordable."""
-    scene = procedural.to_scene(procedural.cornell_with_sphere_mesh(subdiv=2))
-    accel = build_bvh_for_scene(scene, leaf_size=4, cluster_size=128)
-    td = traversal.make_trace_data(scene, accel.fine)
-    pd = packets.make_packet_data(
-        scene,
-        Vec3(accel.cl_lo_x, accel.cl_lo_y, accel.cl_lo_z),
-        Vec3(accel.cl_hi_x, accel.cl_hi_y, accel.cl_hi_z),
-        accel.cl_tri,
-    )
-    from cudapathtracer_tpu.ops.pallas.dense_resident import resident_fits
+@pytest.mark.parametrize("max_clusters", [8, 1])
+def test_visibility_decision_matches_brute(setup, max_clusters):
+    """BDPT's shadow connections (integrators/bdpt.py) ask a capped
+    visibility query: visible iff |t - len| <= EPS_VISIBILITY with
+    t_cap = len + 2 eps. The packet engine's decision must equal the
+    brute-force oracle's on every lane, with a normal shortlist and with a
+    one-slot shortlist that sends most rays through the fallback."""
+    from cudapathtracer.utils.constants import EPS_VISIBILITY
 
-    assert pd.cluster_size % 128 == 0
-    assert resident_fits(pd.num_clusters, pd.cluster_size)
-    cam = make_camera(width=16, height=16)
-    idx = jnp.arange(16 * 16, dtype=jnp.uint32)
-    keys = pixel_keys(sample_key(jax.random.PRNGKey(0), 0), idx)
-    o, d = camera_rays(cam, idx, keys, jitter=False)
-    return scene, td, pd, o, d
-
-
-def test_super_shortlist_exact(setup_resident):
-    """'super' mode (round 4: super-granular shortlists, member expansion
-    behind the kernel's per-ray SMEM box gates) is bit-exact vs brute
-    force — with the full super list (no drops possible) AND with a
-    1-super list forcing the dropped-super U bound + fine-BVH fallback."""
-    scene, td, pd, o, d = setup_resident
-    hb = traversal.trace_bruteforce(o, d, scene)
-    for sl in (255, 1):
-        hp = packets.trace_packets(o, d, pd, fine_td=td, tile_size=64,
-                                   engine="pallas_interpret", sort=True,
-                                   two_level="super", super_factor=2,
-                                   super_list=sl)
-        np.testing.assert_array_equal(np.asarray(hp.tri), np.asarray(hb.tri))
-        np.testing.assert_array_equal(np.asarray(hp.t), np.asarray(hb.t))
-
-
-def test_super_mode_falls_back_when_not_resident(setup):
-    """two_level='super' on a non-resident layout (C=16) or the XLA engine
-    must quietly take the auto path and stay exact."""
     scene, td, pd, o, d = setup
-    hb = traversal.trace_bruteforce(o, d, scene)
-    for eng in ("xla", "pallas_interpret"):
-        hp = packets.trace_packets(o, d, pd, fine_td=td, tile_size=64,
-                                   max_clusters=8, engine=eng,
-                                   two_level="super", super_factor=4)
-        np.testing.assert_array_equal(np.asarray(hp.tri), np.asarray(hb.tri))
-        np.testing.assert_array_equal(np.asarray(hp.t), np.asarray(hb.t))
-
-
-def test_vis_band_decision_parity(setup_resident):
-    """vis_band (visibility-only dropout, consumed by integrators/bdpt.py):
-    the OCCLUSION DECISION |t - len| <= eps must match the closest-hit
-    XLA engine's on every lane, across the resident-cluster, super, and
-    DMA kernels; retired lanes report t = -1.0 (never band-visible)."""
-    from cudapathtracer_tpu.utils.constants import EPS_VISIBILITY
-
-    scene, td, pd, o, d = setup_resident
-    # shadow-style queries: from the camera hits toward a fixed target
-    # point, len = distance (some segments occluded, some clear)
+    # shadow-style queries: from just before the camera hits toward one
+    # point on the ceiling — straight up from the scene's centre — so some
+    # segments are occluded and some reach it
     h0 = traversal.trace_bruteforce(o, d, scene)
     t0 = jnp.where(h0.tri >= 0, h0.t - 1e-3, 1.0)
     pos = o + d * t0
-    tgt = Vec3.full((o.x.shape[0],), 0.5, 0.99, 0.5)
-    seg = tgt - pos
-    ln = jnp.sqrt(seg.x**2 + seg.y**2 + seg.z**2)
-    dirn = Vec3(seg.x / ln, seg.y / ln, seg.z / ln)
-    cap = ln + 2.0 * EPS_VISIBILITY
-    band = 3.0 * EPS_VISIBILITY
-
-    hx = packets.trace_packets(pos, dirn, pd, fine_td=td, tile_size=64,
-                               engine="xla", t_cap=cap)
-    ref_vis = np.abs(np.asarray(hx.t) - np.asarray(ln)) <= EPS_VISIBILITY
-
-    for kw in (dict(engine="pallas_interpret"),
-               dict(engine="pallas_interpret", two_level="super",
-                    super_factor=2)):
-        hv = packets.trace_packets(pos, dirn, pd, fine_td=td, tile_size=64,
-                                   t_cap=cap, vis_band=band, sort=True,
-                                   **kw)
-        tv = np.asarray(hv.t)
-        vis = np.abs(tv - np.asarray(ln)) <= EPS_VISIBILITY
-        np.testing.assert_array_equal(vis, ref_vis)
-        # retired lanes carry the branded occluded report, not a real t
-        retired = tv == -1.0
-        assert not np.any(vis & retired)
-
-
-def test_vis_band_decision_parity_dma(setup):
-    """Same vis_band decision contract through the DMA-pipelined kernel
-    (C=16 fixture is not resident-eligible, so this exercises dense.py)."""
-    from cudapathtracer_tpu.utils.constants import EPS_VISIBILITY
-
-    scene, td, pd, o, d = setup
-    h0 = traversal.trace_bruteforce(o, d, scene)
-    t0 = jnp.where(h0.tri >= 0, h0.t - 1e-3, 1.0)
-    pos = o + d * t0
-    tgt = Vec3.full((o.x.shape[0],), 0.5, 0.99, 0.5)
+    R = o.x.shape[0]
+    c = Vec3(*(jnp.full((1,), jnp.mean(v)) for v in scene.verts))
+    up = Vec3(jnp.zeros((1,)), jnp.ones((1,)), jnp.zeros((1,)))
+    t_up = traversal.trace_bruteforce(c, up, scene).t
+    tgt = Vec3(*(jnp.broadcast_to(v, (R,)) for v in c + up * t_up))
     seg = tgt - pos
     ln = jnp.sqrt(seg.x**2 + seg.y**2 + seg.z**2)
     dirn = Vec3(seg.x / ln, seg.y / ln, seg.z / ln)
     cap = ln + 2.0 * EPS_VISIBILITY
 
-    hx = packets.trace_packets(pos, dirn, pd, fine_td=td, tile_size=64,
-                               max_clusters=8, engine="xla", t_cap=cap)
-    ref_vis = np.abs(np.asarray(hx.t) - np.asarray(ln)) <= EPS_VISIBILITY
-    hv = packets.trace_packets(pos, dirn, pd, fine_td=td, tile_size=64,
-                               max_clusters=8, engine="pallas_interpret",
-                               t_cap=cap, vis_band=3.0 * EPS_VISIBILITY)
-    vis = np.abs(np.asarray(hv.t) - np.asarray(ln)) <= EPS_VISIBILITY
-    np.testing.assert_array_equal(vis, ref_vis)
+    ref = traversal.apply_t_cap(
+        traversal.trace_bruteforce(pos, dirn, scene), cap)
+    hp = packets.trace_packets(pos, dirn, pd, fine_td=td, tile_size=64,
+                               max_clusters=max_clusters, sort=True,
+                               t_cap=cap)
+
+    def visible(h):
+        return np.abs(np.asarray(h.t) - np.asarray(ln)) <= EPS_VISIBILITY
+
+    vis_ref = visible(ref)
+    assert vis_ref.any() and not vis_ref.all()  # both outcomes occur
+    np.testing.assert_array_equal(visible(hp), vis_ref)
+    np.testing.assert_array_equal(np.asarray(hp.tri), np.asarray(ref.tri))

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cudapathtracer_tpu import RenderConfig, init_accum, make_camera, render
-from cudapathtracer_tpu.diff import render_grad as rg
-from cudapathtracer_tpu.models import procedural
-from cudapathtracer_tpu.parallel import mesh as mesh_mod
-from cudapathtracer_tpu.parallel import shard as shard_mod
-from cudapathtracer_tpu.render.renderer import build_bvh_for_scene
+from cudapathtracer import RenderConfig, init_accum, make_camera, render
+from cudapathtracer.diff import render_grad as rg
+from cudapathtracer.models import procedural
+from cudapathtracer.parallel import mesh as mesh_mod
+from cudapathtracer.parallel import shard as shard_mod
+from cudapathtracer.render.renderer import build_bvh_for_scene
 
 
 @pytest.fixture(scope="module")
@@ -23,7 +23,7 @@ def setup():
     return scene, cam, bvh
 
 
-@pytest.mark.parametrize("n_dev", [2, 8])
+@pytest.mark.parametrize("n_dev", [2, 4, 8])
 def test_sharded_render_matches_single_ulp(setup, n_dev):
     """Sharded render == single-chip render, to within XLA fusion ULPs.
 
@@ -169,8 +169,8 @@ def test_train_step_edge_grads_match_single_device(setup):
     """
     import numpy as np_
 
-    from cudapathtracer_tpu.diff.edge_sampling import build_edge_table
-    from cudapathtracer_tpu.models.scene import host_geometry
+    from cudapathtracer.diff.edge_sampling import build_edge_table
+    from cudapathtracer.models.scene import host_geometry
 
     scene, cam, bvh = setup
     cfg = RenderConfig(width=16, height=16, spp=1, integrator="pt_nee",

@@ -2,10 +2,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cudapathtracer_tpu.models import procedural
-from cudapathtracer_tpu.models.loader import load_obj, load_objs
-from cudapathtracer_tpu.models.objio import parse_mtl, parse_obj
-from cudapathtracer_tpu.models.scene import make_scene, merge_scenes
+from cudapathtracer.models import procedural
+from cudapathtracer.models.loader import load_obj, load_objs
+from cudapathtracer.models.objio import parse_mtl, parse_obj
+from cudapathtracer.models.scene import make_scene, merge_scenes
 
 
 @pytest.fixture
@@ -131,9 +131,9 @@ def test_obj_roundtrip_render_parity(tmp_path):
     native parser when available), must render the IDENTICAL image as the
     procedural scene — loader, material mapping, normals, light table and
     accel all agree."""
-    import cudapathtracer_tpu as cpt
-    from cudapathtracer_tpu.models import procedural
-    from cudapathtracer_tpu.models.loader import load_obj
+    import cudapathtracer as cpt
+    from cudapathtracer.models import procedural
+    from cudapathtracer.models.loader import load_obj
 
     desc = procedural.colonnade(subdiv=1)
     po, pm = str(tmp_path / "c.obj"), str(tmp_path / "c.mtl")

@@ -8,7 +8,7 @@ the one live-use contract: light-area accumulation typed as siArea
 
 import pytest
 
-from cudapathtracer_tpu.utils.si import (
+from cudapathtracer.utils.si import (
     AREA,
     DIMLESS,
     LENGTH,
@@ -43,7 +43,7 @@ def test_scene_light_area_is_typed():
     # the live-use path: make_scene accumulates light area through si_area
     import numpy as np
 
-    from cudapathtracer_tpu.models.scene import make_scene
+    from cudapathtracer.models.scene import make_scene
 
     verts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     tris = np.array([[0, 1, 2]], np.int32)

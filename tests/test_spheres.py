@@ -6,13 +6,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import cudapathtracer_tpu as cpt
-from cudapathtracer_tpu import RenderConfig, make_camera
-from cudapathtracer_tpu.models import procedural
-from cudapathtracer_tpu.ops import traversal
-from cudapathtracer_tpu.ops.intersect import ray_sphere
-from cudapathtracer_tpu.ops.vecmath import Vec3
-from cudapathtracer_tpu.render.renderer import (
+import cudapathtracer as cpt
+from cudapathtracer import RenderConfig, make_camera
+from cudapathtracer.models import procedural
+from cudapathtracer.ops import traversal
+from cudapathtracer.ops.intersect import ray_sphere
+from cudapathtracer.ops.vecmath import Vec3
+from cudapathtracer.render.renderer import (
     build_bvh_for_scene,
     make_trace_fn,
 )
@@ -73,8 +73,8 @@ def test_bdpt_rejects_spheres(scene):
 
 def test_sphere_grads_finite_difference(scene):
     """d(loss)/d(radius) through the detach-trick sphere re-evaluation must
-    match finite differences (the BASELINE.json sphere-params target)."""
-    from cudapathtracer_tpu.diff import render_grad as rg
+    match finite differences (the sphere-params target)."""
+    from cudapathtracer.diff import render_grad as rg
 
     cam = make_camera(width=8, height=8)
     cfg = RenderConfig(width=8, height=8, spp=2, integrator="pt_nee",

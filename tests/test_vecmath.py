@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cudapathtracer_tpu.ops import vecmath as vm
+from cudapathtracer.ops import vecmath as vm
 
 
 def _rand_vec(rng, n=64):

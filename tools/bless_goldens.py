@@ -20,11 +20,11 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-import cudapathtracer_tpu as cpt  # noqa: E402
-from cudapathtracer_tpu import RenderConfig, make_camera  # noqa: E402
-from cudapathtracer_tpu.models import procedural  # noqa: E402
-from cudapathtracer_tpu.render.renderer import finalize_image  # noqa: E402
-from cudapathtracer_tpu.utils.ppm import write_ppm  # noqa: E402
+import cudapathtracer as cpt  # noqa: E402
+from cudapathtracer import RenderConfig, make_camera  # noqa: E402
+from cudapathtracer.models import procedural  # noqa: E402
+from cudapathtracer.render.renderer import finalize_image  # noqa: E402
+from cudapathtracer.utils.ppm import write_ppm  # noqa: E402
 
 GOLDENS = os.path.join(REPO, "tests", "goldens")
 
@@ -39,8 +39,8 @@ def bless(name, scene, cfg, cam):
 def bless_falsecolor():
     """BVH-traversal-cost falsecolor golden (the 'sponza bvh.ppm' analogue,
     r2 verdict #7): drift in traversal cost becomes visible in CI."""
-    from cudapathtracer_tpu.render.renderer import build_bvh_for_scene
-    from cudapathtracer_tpu.utils.profiling import falsecolor_state
+    from cudapathtracer.render.renderer import build_bvh_for_scene
+    from cudapathtracer.utils.profiling import falsecolor_state
 
     scene = procedural.to_scene(procedural.colonnade(subdiv=2))
     cfg = RenderConfig(width=64, height=64, spp=1, samples_per_call=1,
@@ -76,7 +76,7 @@ def main():
                        samples_per_call=8),
           make_camera(width=32, height=32))
 
-    # tighter drift alarm at 128^2 (VERDICT r1 item 9)
+    # tighter drift alarm at 128^2
     bless("cornell_pt_nee_128_spp8.ppm", cornell,
           RenderConfig(width=128, height=128, spp=8, integrator="pt_nee",
                        samples_per_call=8),
